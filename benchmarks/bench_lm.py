@@ -9,7 +9,7 @@ the compiled peak-memory column. The O(N) vs O(N²) training-memory claim is
 measured end-to-end here: the XLA arm materializes every layer's [H, N, N]
 score tensor through the backward.
 
-Run (on TPU):  python benchmarks/bench_lm.py [--quick]
+Run (on the GPU):  python benchmarks/bench_lm.py [--quick]
 Each result prints as one JSON line.
 """
 
@@ -25,11 +25,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from flashattn_tpu.utils.platform import enable_compilation_cache
+from flashattn_tpu.utils.platform import device_record, enable_compilation_cache
 
-from flashattn_tpu.utils.tpu_lock import acquire_tpu_lock
-
-acquire_tpu_lock(on_timeout="abort")  # serialize; yield if the chip is busy
 enable_compilation_cache()
 
 from flashattn_tpu.models.transformer import (
@@ -118,6 +115,7 @@ def main():
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--iters", type=int, default=8)
     args = ap.parse_args()
+    print(json.dumps({"device": device_record()}), flush=True)
 
     cfg = TransformerConfig(
         vocab_size=32000, d_model=2048, n_layers=4 if args.quick else 8,
@@ -138,15 +136,13 @@ def main():
     if not args.quick:
         import dataclasses
 
-        # Long-context rows (fused only): the macro-resident causal tier
-        # end-to-end, and Mistral-style SWA training through the KV-slab
-        # macro backward — wall-clock should scale with the window past the
-        # full-causal crossover, not with N².
+        # Long-context rows (fused only): full causal at 8k, and
+        # Mistral-style SWA training — wall-clock should scale with the
+        # window past the full-causal crossover, not with N².
         bench_one(cfg, 1, 8192, "fused", args.iters)
         swa = dataclasses.replace(cfg, sliding_window=2048)
         bench_one(swa, 1, 8192, "fused", args.iters)
-        # 16k needs block remat: stored activations alone exceed the 16 GB
-        # chip (peak 12.2 GB at 8k) — the long-context memory lever.
+        # 16k with block remat: the long-context memory lever.
         swa_r = dataclasses.replace(swa, remat=True)
         bench_one(swa_r, 1, 16384, "fused", args.iters)
 

@@ -3,7 +3,7 @@
 Runs single fused-attention fwd/bwd invocations under the JAX profiler and
 writes a Perfetto/TensorBoard trace plus the lowered compiler IR.
 
-  python benchmarks/capture_trace.py [--out /tmp/flashattn_tpu_trace]
+  python benchmarks/capture_trace.py [--out chiprun_out/trace]
 """
 
 from __future__ import annotations
@@ -17,21 +17,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from flashattn_tpu.utils.platform import enable_compilation_cache
+from flashattn_tpu.utils.platform import device_record, enable_compilation_cache
 
-from flashattn_tpu.utils.tpu_lock import acquire_tpu_lock
-
-acquire_tpu_lock(on_timeout="abort")  # serialize; yield if the chip is busy
 enable_compilation_cache()
 
 
 def capture_ring_trace(out_dir: str, n_dev: int = 8):
     """Trace one ring-attention step on the available mesh (virtual CPU
-    mesh when single-chip). The fwd loop issues step s+1's KV ppermute
-    BEFORE step s's kernels; on real multi-chip TPU the latency-hiding
-    scheduler splits the permute into start/done around the compute — this
-    capture is the artifact to check that on hardware (single-chip traces
-    show only the compute; ICI overlap needs >= 2 chips)."""
+    mesh when single-card). The fwd loop issues step s+1's KV ppermute
+    BEFORE step s's kernels; on several cards the latency-hiding scheduler
+    splits the permute into start/done around the compute — this capture
+    is the artifact to check that on hardware (single-card traces show only
+    the compute)."""
     import jax.numpy as jnp
 
     from flashattn_tpu.parallel import make_mesh, ring_attention_sharded
@@ -53,7 +50,7 @@ def capture_ring_trace(out_dir: str, n_dev: int = 8):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/flashattn_tpu_trace")
+    ap.add_argument("--out", default=os.path.join("chiprun_out", "trace"))
     ap.add_argument("--N", type=int, default=4096)
     ap.add_argument("--D", type=int, default=128)
     ap.add_argument("--causal", action="store_true")
@@ -61,6 +58,7 @@ def main():
     ap.add_argument("--ring", action="store_true",
                     help="trace a ring-attention step instead")
     args = ap.parse_args()
+    print(device_record(), flush=True)
 
     if args.ring:
         out = capture_ring_trace(args.out)

@@ -1,11 +1,11 @@
-"""flashattn_tpu — a TPU-native FlashAttention-2 engine, built from scratch in JAX/Pallas.
+"""flashattn_tpu — a FlashAttention-2 engine for NVIDIA Hopper in JAX/Pallas.
 
 Capability parity target: Repeerc/flash-attention-v2-RDNA3-minimal (see SURVEY.md).
 Where the reference ships HIP C++ WMMA kernels wrapped in torch autograd
 (rocwmma_fattn/kernel_fp16.cu, kernel_bf16.cu, FlashAttn.py), this package ships
-MXU-aligned Pallas kernels wrapped in ``jax.custom_vjp``, plus the distribution
-layer the reference lacks (head-parallel, ring attention, Ulysses) built on
-``jax.shard_map`` and ICI collectives.
+Pallas kernels compiled through Triton, wrapped in ``jax.custom_vjp``, plus the
+distribution layer the reference lacks (head-parallel, ring attention, Ulysses)
+built on ``jax.shard_map`` and XLA collectives (NCCL).
 
 Public API::
 

@@ -216,12 +216,9 @@ def lm_loss(params, tokens, cfg: TransformerConfig, *, interpret=None,
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
                   quant_dtype=None):
     """KV cache pytree; ``quant_dtype`` (int8 / float8_e4m3fn) stores the
-    cache quantized per token per head, halving (or better) its HBM footprint
+    cache quantized per token per head, halving its device-memory footprint
     and read bandwidth — dequantization happens inside the attention kernel
     (ops/quant.py)."""
-    if quant_dtype is not None:
-        from flashattn_tpu.ops.quant import resolve_quant_dtype
-        quant_dtype = resolve_quant_dtype(quant_dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     cache = {
         "length": jnp.zeros((), jnp.int32),
@@ -279,8 +276,7 @@ def decode_step(params, cache, token, cfg: TransformerConfig,
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         if quantized:
-            qt = quantize_kv(k, v, cache["k"][i].dtype,
-                             allow_slow_fp8=True)
+            qt = quantize_kv(k, v, cache["k"][i].dtype)
             kc = jax.lax.dynamic_update_slice_in_dim(
                 cache["k"][i], qt.k_q, pos, axis=1)
             vc = jax.lax.dynamic_update_slice_in_dim(
@@ -331,6 +327,45 @@ def shard_params_leaf_rules(cfg: TransformerConfig):
     }
 
 
+@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
+def _tp_enter(x, axis):
+    """Entry of a tensor-parallel region (Megatron's f): identity forward;
+    the backward sums the shards' partial cotangents, each of which covers
+    only the local heads / MLP columns."""
+    return x
+
+
+def _tp_enter_fwd(x, axis):
+    return x, None
+
+
+def _tp_enter_bwd(axis, _, ct):
+    return (jax.lax.psum(ct, axis),)
+
+
+_tp_enter.defvjp(_tp_enter_fwd, _tp_enter_bwd)
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
+def _tp_exit(x, axis):
+    """Exit of a tensor-parallel region (Megatron's g): sums the shards'
+    partial outputs forward; the cotangent, identical on every shard, passes
+    back unchanged (under ``check_vma=False`` a plain psum would transpose
+    to a second psum and scale it by the axis size)."""
+    return jax.lax.psum(x, axis)
+
+
+def _tp_exit_fwd(x, axis):
+    return jax.lax.psum(x, axis), None
+
+
+def _tp_exit_bwd(axis, _, ct):
+    return (ct,)
+
+
+_tp_exit.defvjp(_tp_exit_fwd, _tp_exit_bwd)
+
+
 def _zigzag_positions(seq_idx, n_local, sp):
     """Global positions of a device's zigzag-layout local rows: natural
     chunks (d, 2·sp−1−d) of length n_local/2 concatenated."""
@@ -376,7 +411,7 @@ def _local_forward_sharded(params, tokens, cfg, mesh_shape, *, interpret,
         return o.transpose(0, 2, 1, 3)
 
     for layer in params["layers"]:
-        h = _rms_norm(x, layer["ln1"])
+        h = _tp_enter(_rms_norm(x, layer["ln1"]), "model")
         q = jnp.einsum("bnd,dhe->bnhe", h, layer["wq"])
         k = jnp.einsum("bnd,dhe->bnhe", h, layer["wk"])
         v = jnp.einsum("bnd,dhe->bnhe", h, layer["wv"])
@@ -384,16 +419,16 @@ def _local_forward_sharded(params, tokens, cfg, mesh_shape, *, interpret,
         k = _rope(k, positions, cfg.rope_theta)
         o = attn(q, k, v)
         # wo is row-sharded over heads -> partial sums -> psum over tp
-        attn_out = jax.lax.psum(
+        attn_out = _tp_exit(
             jnp.einsum("bnhe,hed->bnd", o, layer["wo"]), "model"
         )
         x = x + attn_out.astype(x.dtype)
-        h2 = _rms_norm(x, layer["ln2"])
+        h2 = _tp_enter(_rms_norm(x, layer["ln2"]), "model")
         gate = jax.nn.silu(
             jnp.einsum("bnd,df->bnf", h2, layer["w_gate"]).astype(jnp.float32)
         ).astype(x.dtype)
         up = jnp.einsum("bnd,df->bnf", h2, layer["w_up"])
-        mlp_out = jax.lax.psum(
+        mlp_out = _tp_exit(
             jnp.einsum("bnf,fd->bnd", gate * up, layer["w_down"]), "model"
         )
         x = x + mlp_out.astype(x.dtype)
@@ -447,7 +482,8 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, *, lr=1e-3,
       * model — TP: attention heads + MLP columns sharded; activations
         replicated; psum after wo / w_down,
       * seq   — SP: sequence sharded; differentiable ring attention rotates
-        KV over ICI; grads of replicated params psum'd across it.
+        KV between devices (ppermute); grads of replicated params psum'd
+        across it.
     PP/EP: N/A for this model family (reference has no pipeline/MoE;
     SURVEY.md §2.5 documents them as out of scope).
 
@@ -478,11 +514,7 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, *, lr=1e-3,
 
     mesh_shape = dict(mesh.shape)
     rules = shard_params_leaf_rules(cfg)
-    # Multi-slice: the optional outermost "slice" axis (DCN) acts as extra
-    # batch DP — the ONLY collective crossing it is the gradient psum (and
-    # the scalar loss reduction); ring attention and tp psums stay on ICI.
-    batch_axes = (("slice", "data") if "slice" in mesh_shape
-                  else ("data",))
+    batch_axes = ("data",)
 
     def param_specs():
         layer_spec = {k: rules[k] for k in rules}
@@ -553,33 +585,24 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, *, lr=1e-3,
                 nxt_seg = seg[:, :1]
             seg_next = jnp.concatenate([seg[:, 1:], nxt_seg], axis=1)
             valid = jnp.logical_and(valid, seg == seg_next)
-        # mean over the global batch x (seq-1) (psum over data+seq shards)
-        loss_sum = jax.lax.psum(jnp.sum(jnp.where(valid, -ll, 0.0)),
-                                (*batch_axes, "seq"))
+        # This shard's share of the mean over the global batch x (seq-1):
+        # its own sum over the global count. Differentiating the share (not
+        # a psum of it, whose transpose would scale the cotangent by the
+        # number of shards) gives this shard's gradient contribution.
         count = jax.lax.psum(jnp.sum(valid), (*batch_axes, "seq"))
         # all-length-1 documents can make every position a boundary
-        return loss_sum / jnp.maximum(count, 1)
+        return jnp.sum(jnp.where(valid, -ll, 0.0)) / jnp.maximum(count, 1)
 
     def step(params, opt_state, tokens, seg=None, positions=None):
-        loss, grads = jax.value_and_grad(local_loss)(
+        share, grads = jax.value_and_grad(local_loss)(
             params, tokens, seg, positions)
-
-        # grads of tp-sharded leaves: psum over data+seq; replicated leaves
-        # (embed, norms): psum over data+seq+model.
-        def reduce_grads(g, spec):
-            axes = (*batch_axes, "seq")
-            if not any(s == "model" for s in jax.tree_util.tree_leaves(spec)):
-                axes = (*batch_axes, "model", "seq")
-            return jax.lax.psum(g, axes)
-
-        grads = {
-            "embed": reduce_grads(grads["embed"], P()),
-            "ln_f": reduce_grads(grads["ln_f"], P()),
-            "layers": [
-                {k: reduce_grads(g[k], rules[k]) for k in g}
-                for g in grads["layers"]
-            ],
-        }
+        axes = (*batch_axes, "seq")
+        loss = jax.lax.psum(share, axes)
+        # The tp entry/exit operators leave every leaf's gradient complete
+        # over the model axis (replicated leaves identical on each shard);
+        # the data and seq shards' contributions sum.
+        grads = jax.tree_util.tree_map(lambda g: jax.lax.psum(g, axes),
+                                       grads)
         params, opt_state = adamw_update(grads, opt_state, params, lr=lr)
         return params, opt_state, loss
 

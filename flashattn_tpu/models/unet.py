@@ -2,7 +2,7 @@
 
 The reference's headline numbers are Stable Diffusion it/s with its kernel
 dropped into the U-Net's attention (README.md:104-154; SD1.5 and SDXL shapes
-in BASELINE.md). This module is that model family for the TPU build: a
+in BASELINE.md). This module is that model family on this engine: a
 latent U-Net with ResBlocks + SpatialTransformer blocks (self-attention +
 cross-attention + GEGLU), structurally mirroring the SD1.5/SDXL U-Nets, with
 every attention routed through :func:`flashattn_tpu.ops.sdpa

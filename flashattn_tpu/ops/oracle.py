@@ -3,8 +3,10 @@
 Role parity: the reference validates every kernel against
 ``torch.nn.functional.scaled_dot_product_attention`` with the *math* backend
 forced (reference precision_test.py:6-8, pure_torch_ver.py:179-215). This module
-is that oracle for the TPU build: a direct, unfused softmax(QK^T·s + bias)V in
-float32, used as the ground truth for every precision test and bench.
+is that oracle: a direct, unfused softmax(QK^T·s + bias)V in float32, used as
+the ground truth for every precision test and bench — plus
+:func:`attention_xla`, the same math with matmuls in the input dtype: the
+plain version XLA compiles, which a fused kernel has to beat.
 
 Layout convention throughout the package: canonical ``[B, H, N, D]`` ("BHND").
 """
@@ -34,7 +36,8 @@ def attention_reference(
     segment_ids: tuple[jax.Array, jax.Array] | None = None,
     logit_softcap: float | None = None,
 ) -> jax.Array:
-    """Unfused exact attention in float32, `[B, H, N, D]` layout.
+    """Unfused exact attention in float32 (``Precision.HIGHEST``),
+    `[B, H, N, D]` layout.
 
     Args:
       q: ``[B, H, Nq, D]``.
@@ -58,23 +61,41 @@ def attention_reference(
     Returns:
       ``[B, H, Nq, D]`` in ``q.dtype``.
     """
+    return _attention(q, k, v, bias=bias, causal=causal, scale=scale,
+                      q_offset=q_offset, kv_offset=kv_offset, window=window,
+                      segment_ids=segment_ids, logit_softcap=logit_softcap,
+                      mm_dtype=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
+
+
+def attention_xla(q, k, v, **kwargs) -> jax.Array:
+    """:func:`attention_reference`'s semantics with both matmuls in the
+    input dtype (f32 accumulation, f32 softmax) at default precision: the
+    plain attention XLA compiles, materializing the ``[B, H, Nq, Nk]``
+    scores. The baseline each hand-written kernel is timed against."""
+    return _attention(q, k, v, mm_dtype=q.dtype, precision=None, **kwargs)
+
+
+def _attention(q, k, v, *, bias=None, causal=False, scale=None, q_offset=0,
+               kv_offset=0, window=None, segment_ids=None,
+               logit_softcap=None, mm_dtype, precision):
     orig_dtype = q.dtype
     B, H, Nq, D = q.shape
     Hkv, Nk = k.shape[1], k.shape[2]
     if scale is None:
         scale = float(D) ** -0.5
 
-    qf = q.astype(jnp.float32)
-    kf = k.astype(jnp.float32)
-    vf = v.astype(jnp.float32)
+    qf = q.astype(mm_dtype)
+    kf = k.astype(mm_dtype)
+    vf = v.astype(mm_dtype)
     if Hkv != H:
         assert H % Hkv == 0, f"GQA requires Hkv | H, got H={H} Hkv={Hkv}"
         rep = H // Hkv
         kf = jnp.repeat(kf, rep, axis=1)
         vf = jnp.repeat(vf, rep, axis=1)
 
-    s = jnp.einsum("bhqd,bhkd->bhqk", qf, kf,
-                   precision=jax.lax.Precision.HIGHEST) * scale
+    s = jnp.einsum("bhqd,bhkd->bhqk", qf, kf, precision=precision,
+                   preferred_element_type=jnp.float32) * scale
     if logit_softcap is not None:
         # Gemma-2 convention: cap the scaled logits, then add bias/mask.
         s = logit_softcap * jnp.tanh(s / logit_softcap)
@@ -102,8 +123,8 @@ def attention_reference(
         row_alive = keep.any(axis=-1, keepdims=True)
         s = jnp.where(keep, s, DEFAULT_MASK_VALUE)
     p = jax.nn.softmax(s, axis=-1)
-    o = jnp.einsum("bhqk,bhkd->bhqd", p, vf,
-                   precision=jax.lax.Precision.HIGHEST)
+    o = jnp.einsum("bhqk,bhkd->bhqd", p.astype(mm_dtype), vf,
+                   precision=precision, preferred_element_type=jnp.float32)
     if row_alive is not None:
         o = jnp.where(row_alive, o, 0.0)
     return o.astype(orig_dtype)

@@ -2,10 +2,11 @@
 
 North-star capability beyond the reference (BASELINE.json: "low-precision KV
 tiles dequantized inside the kernel"): the KV cache is stored as int8 or
-float8_e4m3fn with one f32 scale per token per head; the forward kernel folds
-dequantization into the score/probability column scalings (see
-flash_fwd._fwd_kernel), so K/V HBM traffic drops ~2× (bf16→int8) for
-bandwidth-bound long-context inference.
+float8_e4m3fn with one f32 scale per token per head. The forward kernel
+(:mod:`flashattn_tpu.ops.flash_fwd`) loads the 1-byte payload, folds the K
+scales into the score columns and the V scales into the probability columns,
+and converts the payload to the query dtype in registers, so K/V
+device-memory traffic halves against bf16 for bandwidth-bound decoding.
 
 Inference path (forward only): gradients w.r.t. a quantized cache are not
 defined; train with :func:`flashattn_tpu.ops.flash.flash_attention`.
@@ -18,15 +19,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from flashattn_tpu.ops import flash_fwd
-from flashattn_tpu.ops.flash import (
-    NUM_LANES,
-    _dispatch_dtype,
-    _pad_axis,
-    _pad_head_dim,
-    _round_up,
-    choose_block_sizes,
-)
+from flashattn_tpu.ops.flash import _dispatch_dtype, attention_fwd
 
 
 class QuantizedKV(NamedTuple):
@@ -45,33 +38,8 @@ def _qmax(dtype) -> float:
     raise ValueError(f"unsupported KV quant dtype {dtype}")
 
 
-def resolve_quant_dtype(dtype, *, allow_slow_fp8: bool = False):
-    """Guard against the fp8 performance trap: on chips without native fp8
-    matmuls (TPU v5e/v5p) fp8 KV is 5-7× slower than int8 — software operand
-    conversion — and even slower than unquantized bf16 (decode.jsonl). Unless
-    ``allow_slow_fp8`` is set, fp8 requests on such chips warn and fall back
-    to int8 (same memory footprint, fastest path)."""
-    from flashattn_tpu.utils import platform
-
-    if (jnp.dtype(dtype) == jnp.dtype(jnp.float8_e4m3fn)
-            and not allow_slow_fp8 and not platform.native_fp8_matmul()):
-        import warnings
-
-        warnings.warn(
-            "fp8 KV quantization requested but this accelerator has no "
-            "native fp8 matmul (software conversion measured 5-7x slower "
-            "than int8 on TPU v5e); falling back to int8. Pass "
-            "allow_slow_fp8=True to force fp8.",
-            stacklevel=3,
-        )
-        return jnp.dtype(jnp.int8)
-    return jnp.dtype(dtype)
-
-
-def quantize_kv(k: jax.Array, v: jax.Array, dtype=jnp.int8,
-                *, allow_slow_fp8: bool = False) -> QuantizedKV:
+def quantize_kv(k: jax.Array, v: jax.Array, dtype=jnp.int8) -> QuantizedKV:
     """Per-token symmetric quantization of K and V (`[B, H, N, D]`)."""
-    dtype = resolve_quant_dtype(dtype, allow_slow_fp8=allow_slow_fp8)
     qmax = _qmax(dtype)
 
     def quant(x):
@@ -150,35 +118,15 @@ def flash_attention_quantized(
             of = of.reshape(B, Hq, Nq, D)
             return jnp.swapaxes(of, 1, 2) if layout == "BNHD" else of
 
-    blocks = choose_block_sizes(Nq, Nk, D, kdt, bias is not None,
-                                bool(causal))
-    bq, bk = blocks.block_q, blocks.block_k
-    nqp, nkp = _round_up(Nq, bq), _round_up(Nk, bk)
-    dp = _pad_head_dim(D)
-
-    qp = _pad_axis(_pad_axis(q, 2, nqp), 3, dp)
-    kp = _pad_axis(_pad_axis(qkv.k_q, 2, nkp), 3, dp)
-    vp = _pad_axis(_pad_axis(qkv.v_q, 2, nkp), 3, dp)
-    ksp = _pad_axis(qkv.k_scale.astype(jnp.float32), 2, nkp)
-    vsp = _pad_axis(qkv.v_scale.astype(jnp.float32), 2, nkp)
-    bp = None
     if bias is not None:
         while bias.ndim < 4:
             bias = bias[None]
         bias = jnp.broadcast_to(
             bias, (bias.shape[0], bias.shape[1], bias.shape[2], Nk))
-        bp = _pad_axis(bias.astype(jnp.float32), 3, nkp)
-        if bp.shape[2] > 1:
-            bp = _pad_axis(bp, 2, nqp)
-        else:
-            bp = jnp.broadcast_to(bp, (bp.shape[0], bp.shape[1], nqp, nkp))
-
-    offsets = jnp.zeros((2,), jnp.int32)
-    o, _ = flash_fwd.fwd_padded(
-        qp, kp, vp, bp, offsets, ksp, vsp,
-        scale=float(scale), causal=bool(causal), block_q=bq, block_k=bk,
-        kv_valid_len=Nk, return_lse=False, num_heads_q=Hq,
-        interpret=interpret, static_offsets=(0, 0),
-    )
-    o = o[:, :, :Nq, :D].astype(in_dtype)
+    o, _ = attention_fwd(
+        q, qkv.k_q, qkv.v_q, offsets=jnp.zeros((2,), jnp.int32),
+        scale=float(scale), causal=bool(causal), bias=bias,
+        k_scale=qkv.k_scale, v_scale=qkv.v_scale, return_lse=False,
+        interpret=interpret)
+    o = o.astype(in_dtype)
     return jnp.swapaxes(o, 1, 2) if layout == "BNHD" else o

@@ -3,8 +3,8 @@
 Role parity: the reference keeps a tensor-level tiled implementation,
 ``pure_torch_ver.py`` (online softmax at :71-79, ``L = m + log(l)`` at :84-85,
 full backward with recompute at :125-152), as the "mathematically clean spec"
-its HIP kernels are validated against. This module is that spec for the TPU
-build — same tiling algebra, written as ``lax.scan`` over KV/Q tiles so it
+its HIP kernels are validated against. This module is that spec here —
+same tiling algebra, written as ``lax.scan`` over KV/Q tiles so it
 jits, runs on CPU, and serves as the differential-testing anchor for the
 Pallas kernels.
 

@@ -1,15 +1,13 @@
 """Mesh construction helpers.
 
-Axis convention used across the package (models/, parallel/, __graft_entry__):
+Axis convention used across the package (models/, parallel/, chip_smoke.py):
 
-  * ``slice`` — optional OUTERMOST axis for multi-slice topologies: traffic
-    across it rides DCN (data-center network), so only low-frequency
-    collectives (gradient all-reduce) should map to it (SURVEY.md §2.5 comm
-    row: "ICI within a slice, DCN across slices").
   * ``data``  — batch (DP); gradients all-reduced across it.
   * ``model`` — attention heads / MLP columns (TP); zero-comm attention.
   * ``seq``   — sequence/context (SP); ring attention or Ulysses all-to-all.
-    Innermost so ring ppermutes ride neighbor ICI links.
+
+The cards of one host are NVLink peers, all to all at one rate, so the mesh
+follows the algorithm alone: devices fill it in ``jax.devices()`` order.
 """
 
 from __future__ import annotations
@@ -20,25 +18,15 @@ import jax
 from jax.sharding import Mesh
 
 
-def make_mesh(
-    data: int = 1, model: int = 1, seq: int = 1, *, slices: int = 1,
-    devices=None,
-) -> Mesh:
-    """Build a ``(data, model, seq)`` mesh — or, with ``slices > 1``, a
-    2-level ``(slice, data, model, seq)`` mesh with the slice axis outermost
-    (DCN) and the ICI axes inner. With real multi-slice hardware, pass
-    ``devices`` ordered slice-major (each slice's chips contiguous) so the
-    outer axis truly maps to DCN boundaries."""
+def make_mesh(data: int = 1, model: int = 1, seq: int = 1, *,
+              devices=None) -> Mesh:
+    """Build a ``(data, model, seq)`` mesh over the first
+    ``data*model*seq`` devices."""
     if devices is None:
         devices = jax.devices()
-    n = slices * data * model * seq
+    n = data * model * seq
     if n > len(devices):
         raise ValueError(
-            f"mesh {slices}x{data}x{model}x{seq}={n} exceeds "
-            f"{len(devices)} devices"
-        )
-    if slices > 1:
-        arr = np.array(devices[:n]).reshape(slices, data, model, seq)
-        return Mesh(arr, axis_names=("slice", "data", "model", "seq"))
+            f"mesh {data}x{model}x{seq}={n} exceeds {len(devices)} devices")
     arr = np.array(devices[:n]).reshape(data, model, seq)
     return Mesh(arr, axis_names=("data", "model", "seq"))

@@ -1,4 +1,4 @@
-"""Ring attention: sequence-parallel fused attention over an ICI ring.
+"""Ring attention: sequence-parallel fused attention over a device ring.
 
 New scope vs the reference (it is single-GPU), but built from the reference's
 own algebra: the stored per-row ``L = m + log(l)`` statistic
@@ -8,8 +8,9 @@ attention results across devices (SURVEY.md §5) —
     L = logaddexp(L1, L2);  O = e^{L1−L}·O1 + e^{L2−L}·O2.
 
 Each device owns a contiguous sequence chunk of Q and of K/V. K/V chunks
-rotate around the ring via ``jax.lax.ppermute`` (point-to-point over ICI);
-each step computes a partial with the single-device Pallas kernel (passing
+rotate around the ring via ``jax.lax.ppermute`` (point-to-point; XLA
+hands it to NCCL over NVLink);
+each step computes a partial with the single-device kernel (passing
 absolute position offsets so causal masks stay globally consistent) and
 merges via the LSE rule. The backward pass rotates (K, V) together with
 (dK, dV) accumulators — after a final rotation the accumulated gradients
@@ -25,17 +26,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from flashattn_tpu.ops import flash_bwd
 from flashattn_tpu.ops.flash import (
-    NUM_LANES,
     _dispatch_dtype,
-    _flash_core_fwd_impl,
-    _pad_axis,
     _int_zero_cotangent,
-    _pad_head_dim,
-    _round_up,
-    _seg_tiles,
-    choose_block_sizes,
+    attention_bwd,
+    attention_fwd,
 )
 
 
@@ -51,81 +46,28 @@ def _merge(o, lse, o_p, lse_p):
     return o * w_old + o_p * w_new, lse_new
 
 
-def _partial_fwd(q, k_blk, v_blk, q_off, kv_off, *, causal, scale, blocks,
+def _partial_fwd(q, k_blk, v_blk, q_off, kv_off, *, causal, scale,
                  window=None, seg_q=None, seg_kv=None):
     offsets = jnp.stack([jnp.asarray(q_off, jnp.int32),
                          jnp.asarray(kv_off, jnp.int32)])
-    o_p, lse_p = _flash_core_fwd_impl(
-        q, k_blk, v_blk, None, offsets, scale, causal, blocks,
-        k_blk.shape[2], None, return_lse=True, window=window,
-        seg_q=seg_q, seg_kv=seg_kv,
-    )
+    o_p, lse_p = attention_fwd(
+        q, k_blk, v_blk, offsets=offsets, scale=scale, causal=causal,
+        window=window, seg_q=seg_q, seg_kv=seg_kv)
     return o_p.astype(jnp.float32), lse_p
 
 
-def _chunk_grads(q, k_blk, v_blk, do, lse, delta, q_off, kv_off, *,
-                 causal, scale, blocks, window=None, seg_q=None,
-                 seg_kv=None):
+def _chunk_grads(q, k_blk, v_blk, o, do, lse, q_off, kv_off, *,
+                 causal, scale, window=None, seg_q=None, seg_kv=None):
     """Per-chunk-pair (dQ, dK, dV) via the single-device bwd kernels, with
-    the *global* LSE/delta so partial gradients sum exactly."""
-    B, H, nq, D = q.shape
-    Hkv = k_blk.shape[1]
-    rep = H // Hkv
-    if rep > 1:
-        k_blk = jnp.repeat(k_blk, rep, axis=1)
-        v_blk = jnp.repeat(v_blk, rep, axis=1)
-    nk = k_blk.shape[2]
+    the *global* O and LSE so partial gradients sum exactly. GQA is handled
+    inside the kernels (dK/dV come back at Hkv heads)."""
     offsets = jnp.stack([jnp.asarray(q_off, jnp.int32),
                          jnp.asarray(kv_off, jnp.int32)])
-    dp = _pad_head_dim(D)
-
-    # dKV pass
-    bq, bk = blocks.block_q_dkv, blocks.block_k_dkv
-    nqp, nkp = _round_up(nq, bq), _round_up(nk, bk)
-    lse_rep = jnp.broadcast_to(
-        _pad_axis(lse, 2, nqp)[..., None], (B, H, nqp, NUM_LANES))
-    delta_rep = jnp.broadcast_to(
-        _pad_axis(delta, 2, nqp)[..., None], (B, H, nqp, NUM_LANES))
-    sq_rep = skv_rep = seg_flags = None
-    if seg_q is not None:
-        sq_rep, skv_rep, seg_flags = _seg_tiles(seg_q, seg_kv, nqp, nkp,
-                                                bq, bk)
-    dk, dv = flash_bwd.dkv_padded(
-        _pad_axis(_pad_axis(q, 2, nqp), 3, dp),
-        _pad_axis(_pad_axis(k_blk, 2, nkp), 3, dp),
-        _pad_axis(_pad_axis(v_blk, 2, nkp), 3, dp),
-        _pad_axis(_pad_axis(do, 2, nqp), 3, dp),
-        lse_rep, delta_rep, None, offsets, sq_rep, skv_rep, seg_flags,
-        scale=scale, causal=causal, block_q=bq, block_k=bk,
-        kv_valid_len=nk, window=window,
-    )
-    dk = dk[:, :, :nk, :D].astype(jnp.float32)
-    dv = dv[:, :, :nk, :D].astype(jnp.float32)
-
-    # dQ pass
-    bq, bk = blocks.block_q_dq, blocks.block_k_dq
-    nqp, nkp = _round_up(nq, bq), _round_up(nk, bk)
-    lse_rep = jnp.broadcast_to(
-        _pad_axis(lse, 2, nqp)[..., None], (B, H, nqp, NUM_LANES))
-    delta_rep = jnp.broadcast_to(
-        _pad_axis(delta, 2, nqp)[..., None], (B, H, nqp, NUM_LANES))
-    if seg_q is not None:
-        sq_rep, skv_rep, seg_flags = _seg_tiles(seg_q, seg_kv, nqp, nkp,
-                                                bq, bk)
-    dq, _ = flash_bwd.dq_padded(
-        _pad_axis(_pad_axis(q, 2, nqp), 3, dp),
-        _pad_axis(_pad_axis(k_blk, 2, nkp), 3, dp),
-        _pad_axis(_pad_axis(v_blk, 2, nkp), 3, dp),
-        _pad_axis(_pad_axis(do, 2, nqp), 3, dp),
-        lse_rep, delta_rep, None, offsets, sq_rep, skv_rep, seg_flags,
-        scale=scale, causal=causal, block_q=bq, block_k=bk,
-        kv_valid_len=nk, window=window,
-    )
-    dq = dq[:, :, :nq, :D].astype(jnp.float32)
-    if rep > 1:
-        dk = dk.reshape(B, Hkv, rep, nk, D).sum(axis=2)
-        dv = dv.reshape(B, Hkv, rep, nk, D).sum(axis=2)
-    return dq, dk, dv
+    dq, dk, dv, _ = attention_bwd(
+        q, k_blk, v_blk, o, lse, do, offsets=offsets, scale=scale,
+        causal=causal, window=window, seg_q=seg_q, seg_kv=seg_kv)
+    return (dq.astype(jnp.float32), dk.astype(jnp.float32),
+            dv.astype(jnp.float32))
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8, 9))
@@ -142,7 +84,6 @@ def _ring_fwd_loop(q, k, v, seg_q, seg_kv, axis_name, n_dev, causal, scale,
     nk = k.shape[2]
     idx = jax.lax.axis_index(axis_name)
     q_off = idx * nq
-    blocks = choose_block_sizes(nq, nk, D, q.dtype, causal=causal)
 
     o = jnp.zeros((B, H, nq, D), jnp.float32)
     lse = jnp.full((B, H, nq), -jnp.inf, jnp.float32)
@@ -154,7 +95,7 @@ def _ring_fwd_loop(q, k, v, seg_q, seg_kv, axis_name, n_dev, causal, scale,
         # Double-buffered rotation: issue the NEXT step's ppermute BEFORE
         # this step's attention kernel. The permute consumes the same
         # (k_blk, v_blk) the kernel reads, so the two are independent and
-        # XLA's latency-hiding scheduler overlaps the ICI transfer with the
+        # XLA's latency-hiding scheduler overlaps the transfer with the
         # per-tile compute (the north-star overlap clause; the distributed
         # analogue of the reference's online-softmax merge state,
         # kernel_fp16.cu:541-542).
@@ -168,7 +109,7 @@ def _ring_fwd_loop(q, k, v, seg_q, seg_kv, axis_name, n_dev, causal, scale,
                     kv_off=kv_off):
             o_p, lse_p = _partial_fwd(
                 q, k_blk, v_blk, q_off, kv_off,
-                causal=causal, scale=scale, blocks=blocks, window=window,
+                causal=causal, scale=scale, window=window,
                 seg_q=seg_q, seg_kv=skv_blk,
             )
             return _merge(o, lse, o_p, lse_p)
@@ -213,13 +154,8 @@ def _ring_core_bwd(axis_name, n_dev, causal, scale, window, residuals, g):
     nk = k.shape[2]
     idx = jax.lax.axis_index(axis_name)
     q_off = idx * nq
-    blocks = choose_block_sizes(nq, nk, D, q.dtype, causal=causal)
 
     do = g.astype(q.dtype)
-    delta = jnp.sum(
-        do.astype(jnp.float32) * o.astype(jnp.float32), axis=-1
-    )
-
     dq = jnp.zeros((B, H, nq, D), jnp.float32)
     Hkv = k.shape[1]
     dk_acc = jnp.zeros((B, Hkv, nk, D), jnp.float32)
@@ -232,8 +168,8 @@ def _ring_core_bwd(axis_name, n_dev, causal, scale, window, residuals, g):
         def compute(dq, dk_acc, dv_acc, k_blk=k_blk, v_blk=v_blk,
                     skv_blk=skv_blk, kv_off=kv_off):
             dq_p, dk_p, dv_p = _chunk_grads(
-                q, k_blk, v_blk, do, lse, delta, q_off, kv_off,
-                causal=causal, scale=scale, blocks=blocks, window=window,
+                q, k_blk, v_blk, o, do, lse, q_off, kv_off,
+                causal=causal, scale=scale, window=window,
                 seg_q=seg_q, seg_kv=skv_blk,
             )
             return dq + dq_p, dk_acc + dk_p, dv_acc + dv_p
@@ -311,9 +247,8 @@ def ring_attention(
     else:
         seg_q = seg_kv = segment_ids
     # GQA: K/V stay at Hkv heads through the ring — every ppermute carries
-    # only Hkv/Hq of the naive traffic; the fused kernel reads KV heads
-    # via its GQA BlockSpec index map, and the backward expands per chunk
-    # locally (VMEM, not ICI) and reduces dK/dV back to Hkv.
+    # only Hkv/Hq of the naive traffic; the kernels map q head h to kv head
+    # h // rep, and the dK/dV kernel sums its GQA group in registers.
     o = _ring_core(
         q.astype(kdt), k.astype(kdt), v.astype(kdt), seg_q, seg_kv,
         axis_name, int(axis_size), bool(causal), float(scale),

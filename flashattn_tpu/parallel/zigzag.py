@@ -40,7 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from flashattn_tpu.ops.flash import _dispatch_dtype, choose_block_sizes
+from flashattn_tpu.ops.flash import _dispatch_dtype
 from flashattn_tpu.parallel.ring import (
     _chunk_grads,
     _merge,
@@ -94,7 +94,6 @@ def _zz_fwd_loop(q, k, v, axis_name, n_dev, scale):
     c = n2c // 2
     idx = jax.lax.axis_index(axis_name)
     q_lo_off, q_hi_off = _offsets(idx, c, n_dev)
-    blocks = choose_block_sizes(c, c, D, q.dtype, causal=True)
     q_lo, q_hi = q[:, :, :c], q[:, :, c:]
 
     o_lo = jnp.zeros((B, H, c, D), jnp.float32)
@@ -115,13 +114,13 @@ def _zz_fwd_loop(q, k, v, axis_name, n_dev, scale):
         # q_hi × k_lo: live at every step on every device (the balance).
         o_p, lse_p = _partial_fwd(
             q_hi, k_lo, v_lo, q_hi_off, k_lo_off,
-            causal=True, scale=scale, blocks=blocks)
+            causal=True, scale=scale)
         o_hi, lse_hi = _merge(o_hi, lse_hi, o_p, lse_p)
 
         def lo_lo(o_lo, lse_lo, k_lo=k_lo, v_lo=v_lo, k_lo_off=k_lo_off):
             o_p, lse_p = _partial_fwd(
                 q_lo, k_lo, v_lo, q_lo_off, k_lo_off,
-                causal=True, scale=scale, blocks=blocks)
+                causal=True, scale=scale)
             return _merge(o_lo, lse_lo, o_p, lse_p)
 
         o_lo, lse_lo = jax.lax.cond(
@@ -130,7 +129,7 @@ def _zz_fwd_loop(q, k, v, axis_name, n_dev, scale):
         def hi_hi(o_hi, lse_hi, k_hi=k_hi, v_hi=v_hi, k_hi_off=k_hi_off):
             o_p, lse_p = _partial_fwd(
                 q_hi, k_hi, v_hi, q_hi_off, k_hi_off,
-                causal=True, scale=scale, blocks=blocks)
+                causal=True, scale=scale)
             return _merge(o_hi, lse_hi, o_p, lse_p)
 
         o_hi, lse_hi = jax.lax.cond(
@@ -161,14 +160,12 @@ def _zz_core_bwd(axis_name, n_dev, scale, residuals, g):
     Hkv = k.shape[1]
     idx = jax.lax.axis_index(axis_name)
     q_lo_off, q_hi_off = _offsets(idx, c, n_dev)
-    blocks = choose_block_sizes(c, c, D, q.dtype, causal=True)
 
     do = g.astype(q.dtype)
-    delta = jnp.sum(do.astype(jnp.float32) * o.astype(jnp.float32), axis=-1)
     q_lo, q_hi = q[:, :, :c], q[:, :, c:]
     do_lo, do_hi = do[:, :, :c], do[:, :, c:]
+    o_lo, o_hi = o[:, :, :c], o[:, :, c:]
     lse_lo, lse_hi = lse[:, :, :c], lse[:, :, c:]
-    d_lo, d_hi = delta[:, :, :c], delta[:, :, c:]
 
     dq_lo = jnp.zeros((B, H, c, D), jnp.float32)
     dq_hi = jnp.zeros((B, H, c, D), jnp.float32)
@@ -187,8 +184,8 @@ def _zz_core_bwd(axis_name, n_dev, scale, residuals, g):
 
         # q_hi × k_lo (always live)
         dq_p, dk_p, dv_p = _chunk_grads(
-            q_hi, k_lo, v_lo, do_hi, lse_hi, d_hi, q_hi_off, k_lo_off,
-            causal=True, scale=scale, blocks=blocks)
+            q_hi, k_lo, v_lo, o_hi, do_hi, lse_hi, q_hi_off, k_lo_off,
+            causal=True, scale=scale)
         dq_hi = dq_hi + dq_p
         dk_acc = dk_acc.at[:, :, :c].add(dk_p)
         dv_acc = dv_acc.at[:, :, :c].add(dv_p)
@@ -196,8 +193,8 @@ def _zz_core_bwd(axis_name, n_dev, scale, residuals, g):
         def lo_lo(dq_lo, dk_acc, dv_acc, k_lo=k_lo, v_lo=v_lo,
                   k_lo_off=k_lo_off):
             dq_p, dk_p, dv_p = _chunk_grads(
-                q_lo, k_lo, v_lo, do_lo, lse_lo, d_lo, q_lo_off, k_lo_off,
-                causal=True, scale=scale, blocks=blocks)
+                q_lo, k_lo, v_lo, o_lo, do_lo, lse_lo, q_lo_off, k_lo_off,
+                causal=True, scale=scale)
             return (dq_lo + dq_p, dk_acc.at[:, :, :c].add(dk_p),
                     dv_acc.at[:, :, :c].add(dv_p))
 
@@ -208,8 +205,8 @@ def _zz_core_bwd(axis_name, n_dev, scale, residuals, g):
         def hi_hi(dq_hi, dk_acc, dv_acc, k_hi=k_hi, v_hi=v_hi,
                   k_hi_off=k_hi_off):
             dq_p, dk_p, dv_p = _chunk_grads(
-                q_hi, k_hi, v_hi, do_hi, lse_hi, d_hi, q_hi_off, k_hi_off,
-                causal=True, scale=scale, blocks=blocks)
+                q_hi, k_hi, v_hi, o_hi, do_hi, lse_hi, q_hi_off, k_hi_off,
+                causal=True, scale=scale)
             return (dq_hi + dq_p, dk_acc.at[:, :, c:].add(dk_p),
                     dv_acc.at[:, :, c:].add(dv_p))
 

@@ -3,7 +3,7 @@
 The reference has no checkpointing (SURVEY.md §5: stateless op library); this
 framework ships model families and a sharded training step, so durable
 train-state snapshots are part of the capability surface. Orbax is the
-TPU-native store (async-capable, sharding-aware); a plain-numpy ``.npz``
+JAX-native store (async-capable, sharding-aware); a plain-numpy ``.npz``
 fallback keeps the API working where orbax is unavailable.
 
     from flashattn_tpu.utils import checkpoint as ckpt

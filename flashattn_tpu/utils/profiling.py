@@ -1,11 +1,12 @@
-"""Profiling & trace capture — the reference's tracing toolkit, TPU-native.
+"""Profiling & trace capture — the reference's tracing toolkit, in JAX.
 
 Role parity (SURVEY.md §5):
   * ``RGP_Capture.py`` (runs single fwd/bwd invocations under Radeon GPU
     Profiler) → :func:`trace` / :func:`capture_attention_trace`, which wrap
     ``jax.profiler`` and emit a Perfetto/TensorBoard trace directory;
   * ``-save-temps`` ISA retention (reference FlashAttn.py:28) →
-    :func:`dump_kernel_ir`, which saves the lowered Mosaic/StableHLO text for
+    :func:`dump_kernel_ir`, which saves the lowered StableHLO text (with the
+    Triton kernels embedded) for
     a jitted function so generated code can be inspected offline;
   * the commented ``torch.autograd.profiler`` blocks in every bench →
     :func:`annotate`, a ``TraceAnnotation`` context for labeling bench regions.
@@ -23,7 +24,7 @@ import jax
 def trace(log_dir: str = "/tmp/flashattn_tpu_trace", *, host: bool = False):
     """Capture a device trace around a code region.
 
-    View with TensorBoard's profile plugin or Perfetto (the TPU analogue of a
+    View with TensorBoard's profile plugin or Perfetto (the analogue of a
     Radeon GPU Profiler capture). Usage::
 
         with trace("/tmp/tr"):

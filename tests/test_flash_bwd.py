@@ -1,4 +1,4 @@
-"""Pallas backward (custom_vjp) vs autodiff through the exact oracle.
+"""Backward kernels (custom_vjp) vs autodiff through the exact oracle.
 
 The reference checks dQ/dK/dV max-abs diffs vs SDPA autograd
 (precision_test.py:66-98); here every gradient is asserted against
@@ -35,29 +35,6 @@ def test_bwd_matches_oracle(shape, causal):
     got = _grads(lambda q, k, v: flash_attention(q, k, v, causal=causal), q, k, v)
     want = _grads(lambda q, k, v: attention_reference(q, k, v, causal=causal), q, k, v)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        assert_close(a, b, BWD_TOL[jnp.float32.dtype], name)
-
-
-@pytest.mark.slow
-def test_bwd_unaligned_decomposed_route():
-    """r5 quadrant-decomposed backward for unaligned noncausal shapes
-    (flash._bwd_unaligned_impl): grads must match the oracle exactly
-    through the main-fused + XLA-tail-quadrant sum, incl. GQA reduction."""
-    from flashattn_tpu.ops import flash as _flash
-
-    B, H, Nq, D, Nk = 1, 4, 2049, 64, 2049
-    q, k, v = make_qkv(jax.random.PRNGKey(9), B, H, Nq, D, Nk=Nk, Hkv=2)
-    # the gate must fire for this shape
-    assert _flash._can_decompose_unaligned(
-        causal=False, window=None, bias=None, seg=None, Nq=Nq, Nk=Nk,
-        bq=1024, bk=1024, kv_valid_len=Nk, D=D)
-    got = _grads(lambda q, k, v: flash_attention(q, k, v), q, k, v)
-    kr, vr = jnp.repeat(k, 2, axis=1), jnp.repeat(v, 2, axis=1)
-    gq, gk, gv = _grads(lambda q, k, v: attention_reference(q, k, v),
-                        q, kr, vr)
-    gk = gk.reshape(B, 2, 2, Nk, D).sum(axis=2)
-    gv = gv.reshape(B, 2, 2, Nk, D).sum(axis=2)
-    for name, a, b in zip(("dq", "dk", "dv"), got, (gq, gk, gv)):
         assert_close(a, b, BWD_TOL[jnp.float32.dtype], name)
 
 
@@ -109,104 +86,3 @@ def test_bwd_adversarial_reference_shape():
     )
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert_close(a, b, BWD_TOL[jnp.float32.dtype], name)
-
-
-@pytest.mark.slow
-def test_bwd_resident_causal_route_and_tail(monkeypatch):
-    """With the resident route enabled (RB_MAXN — default-off since r3: the
-    wide-tile flat fused bwd measured faster at every N), square causal
-    backward at N ≤ 4096 with compile-time offsets routes through the
-    whole-sequence resident fused kernel (flash_bwd_fused.
-    _bwd_causal_resident_kernel); unaligned N exercises its static
-    padded-tail column bound. Both must match oracle grads."""
-    from unittest import mock
-
-    from flashattn_tpu.ops import flash_bwd_fused as fb
-
-    monkeypatch.setattr(fb, "_RESIDENT_BWD_MAX_N", 4096)
-    jax.clear_caches()  # same-shape traces may hold the default routing
-
-    calls = []
-    orig = fb._bwd_causal_resident_kernel
-
-    def spy(*a, **k):
-        calls.append((k["n"], k["kv_valid_len"]))
-        return orig(*a, **k)
-
-    for N in (512, 500):
-        q, k, v = make_qkv(jax.random.PRNGKey(40 + N), 1, 2, N, 64)
-        calls.clear()
-        with mock.patch.object(
-                fb, "_bwd_causal_resident_kernel",
-                mock.Mock(side_effect=spy, __name__="rb")):
-            got = _grads(
-                lambda q, k, v: flash_attention(q, k, v, causal=True),
-                q, k, v)
-        assert calls, f"resident bwd not routed at N={N}"
-        assert calls[0][1] == N  # kv_valid_len reaches the static table
-        want = _grads(
-            lambda q, k, v: attention_reference(q, k, v, causal=True),
-            q, k, v)
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            assert_close(a, b, BWD_TOL[jnp.float32.dtype], f"{name}@N={N}")
-    jax.clear_caches()  # drop the resident-routed traces
-
-
-@pytest.mark.slow
-def test_bwd_resident_geometry_divisor_tiles(monkeypatch):
-    """N=2560: _rb_geometry shrinks the square pair tile to the largest
-    lane-aligned divisor (640, with a 128-row diagonal chunk) so the
-    resident route still applies; grads must match the oracle."""
-    from unittest import mock
-
-    from flashattn_tpu.ops import flash_bwd_fused as fb
-
-    monkeypatch.setattr(fb, "_RESIDENT_BWD_MAX_N", 4096)
-    jax.clear_caches()
-
-    assert fb._rb_geometry(2560) == (640, 128)
-    assert fb._rb_geometry(3072) == (1024, 256)
-    assert fb._rb_geometry(512) == (512, 128)
-    calls = []
-    orig = fb._bwd_causal_resident_kernel
-
-    def spy(*a, **k):
-        calls.append((k["n"], k["sub"], k["tri_sub"]))
-        return orig(*a, **k)
-
-    q, k, v = make_qkv(jax.random.PRNGKey(70), 1, 1, 2560, 64)
-    with mock.patch.object(
-            fb, "_bwd_causal_resident_kernel",
-            mock.Mock(side_effect=spy, __name__="rb")):
-        got = _grads(
-            lambda q, k, v: flash_attention(q, k, v, causal=True), q, k, v)
-    # The host may pad 2560 up to the next block multiple; whatever length
-    # the kernel sees, the tile pair must be _rb_geometry of it.
-    # The fused-bwd launch pads with its own 1024 blocks (flash.py bq_f),
-    # so today every padded length divides cleanly; the geometry-consistency
-    # assert guards any future block policy.
-    assert calls and calls[0][1:] == fb._rb_geometry(calls[0][0]), calls
-    want = _grads(
-        lambda q, k, v: attention_reference(q, k, v, causal=True), q, k, v)
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        assert_close(a, b, BWD_TOL[jnp.float32.dtype], name)
-    jax.clear_caches()
-
-
-@pytest.mark.slow
-def test_bwd_resident_banded_windows(monkeypatch):
-    """The resident fused backward also serves static sliding-window bands
-    (causal+window and pure local window) — grads must match the oracle."""
-    from flashattn_tpu.ops import flash_bwd_fused as fb
-
-    monkeypatch.setattr(fb, "_RESIDENT_BWD_MAX_N", 4096)
-    jax.clear_caches()
-    q, k, v = make_qkv(jax.random.PRNGKey(60), 1, 2, 384, 64)
-    for kw in (dict(causal=True, window=(96, 0)),
-               dict(causal=False, window=(64, 32))):
-        got = _grads(lambda q, k, v: flash_attention(q, k, v, **kw), q, k, v)
-        want = _grads(
-            lambda q, k, v: attention_reference(q, k, v, **kw), q, k, v)
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            assert_close(a, b, BWD_TOL[jnp.float32.dtype], f"{name}@{kw}")
-    jax.clear_caches()

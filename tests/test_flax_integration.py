@@ -6,12 +6,13 @@ nn.MultiHeadDotProductAttention's attention_fn hook. Every test pins the
 fused path against flax's own nn.dot_product_attention on identical inputs.
 """
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import pytest
 
-from flashattn_tpu.integrations import (
+nn = pytest.importorskip("flax.linen")  # optional dependency
+
+from flashattn_tpu.integrations import (  # noqa: E402
     FlashMultiHeadDotProductAttention,
     flash_attention_fn,
     make_flash_attention_fn,

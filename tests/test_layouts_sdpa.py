@@ -70,24 +70,23 @@ def test_sdpa_custom_scale():
 
 
 def test_sdpa_impl_dispatch_agreement():
-    """auto/fused/exact must agree (auto picks exact for a small square and
-    for tiny-Nk cross-attention; fused for long sequences)."""
+    """auto/fused/exact must agree; auto takes the fused kernel for every
+    shape, including SD's 77-token cross-attention."""
     import jax
     import jax.numpy as jnp
 
-    from flashattn_tpu.ops.sdpa import _exact_is_faster, \
-        scaled_dot_product_attention as sdpa
+    import pytest
 
-    assert _exact_is_faster(512, 512)
-    assert _exact_is_faster(4096, 77)   # SD cross-attention
-    assert not _exact_is_faster(4096, 4096)
-    assert not _exact_is_faster(1, 8192)  # decode stays fused
+    from flashattn_tpu.ops.sdpa import scaled_dot_product_attention as sdpa
 
     ks = jax.random.split(jax.random.PRNGKey(0), 3)
     q = jax.random.normal(ks[0], (1, 2, 256, 64), jnp.float32)
-    k = jax.random.normal(ks[1], (1, 2, 320, 64), jnp.float32)
-    v = jax.random.normal(ks[2], (1, 2, 320, 64), jnp.float32)
-    outs = {impl: sdpa(q, k, v, is_causal=True, impl=impl)
-            for impl in ("auto", "fused", "exact")}
-    assert float(jnp.max(jnp.abs(outs["auto"] - outs["exact"]))) == 0.0
-    assert float(jnp.max(jnp.abs(outs["fused"] - outs["exact"]))) < 2e-5
+    for nk, causal in ((320, True), (77, False)):   # 77: SD cross-attention
+        k = jax.random.normal(ks[1], (1, 2, nk, 64), jnp.float32)
+        v = jax.random.normal(ks[2], (1, 2, nk, 64), jnp.float32)
+        outs = {impl: sdpa(q, k, v, is_causal=causal, impl=impl)
+                for impl in ("auto", "fused", "exact")}
+        assert float(jnp.max(jnp.abs(outs["auto"] - outs["fused"]))) == 0.0
+        assert float(jnp.max(jnp.abs(outs["fused"] - outs["exact"]))) < 2e-5
+    with pytest.raises(ValueError, match="unknown impl"):
+        sdpa(q, k, v, impl="cudnn")

@@ -44,6 +44,40 @@ def test_transformer_forward_and_loss(lm_params):
     assert 3.0 < float(loss) < 7.0  # ~ln(128) at init
 
 
+@pytest.mark.parametrize("mesh_shape,kw", [
+    ((1, 2, 1), {}),
+    ((1, 2, 2), {}),
+    ((2, 1, 2), {}),
+    ((1, 1, 4), {"seq_layout": "zigzag"}),
+    ((1, 2, 2), {"with_segment_ids": True}),
+])
+def test_sharded_grads_match_single_device(lm_params, mesh_shape, kw):
+    """Every leaf's gradient from a sharded step equals the one-device
+    gradient (compared through AdamW's first moment, 0.1·g after step 1):
+    tp entry/exit operators and per-shard loss shares keep shard_map's psum
+    transposes from scaling or skewing the gradients."""
+    import numpy as np
+
+    toks = jax.random.randint(jax.random.PRNGKey(5), (2, 64), 0, 128)
+    args = (toks,)
+    if kw.get("with_segment_ids"):
+        args += ((jnp.arange(64)[None] >= 23).astype(jnp.int32).repeat(2, 0),)
+
+    def first_moment(mesh, **opts):
+        step, _, _ = make_sharded_train_step(mesh, CFG, lr=1e-3, **opts)
+        _, opt, loss = step(lm_params, adamw_init(lm_params), *args)
+        return jax.tree_util.tree_leaves(opt["mu"]), float(loss)
+
+    opts = {"with_segment_ids": kw.get("with_segment_ids", False)}
+    want, loss_want = first_moment(make_mesh(1, 1, 1), **opts)
+    got, loss = first_moment(make_mesh(*mesh_shape), **kw)
+    assert abs(loss - loss_want) < 1e-5
+    for a, b in zip(got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        assert np.max(np.abs(a - b)) <= 1e-4 * np.max(np.abs(b)), (
+            np.max(np.abs(a - b)), np.max(np.abs(b)))
+
+
 def test_lm_attn_impl_equivalence(lm_params):
     """The fused engine and exact-XLA attention must agree through the LM
     (the bench_lm arms compute the same function; mirrors the U-Net's
@@ -127,8 +161,7 @@ def test_decode_matches_forward(lm_params):
     for t in range(6):
         lg, cache = step(cache, toks[:, t])
         errs.append(float(jnp.max(jnp.abs(lg - logits[:, t]))))
-    tol = 1e-2 if jax.default_backend() == "tpu" else 1e-4
-    assert max(errs) < tol, errs
+    assert max(errs) < 1e-4, errs
 
 
 def test_decode_quantized_cache(lm_params):

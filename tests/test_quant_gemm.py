@@ -1,11 +1,10 @@
-"""Quantized-KV attention, GEMM probe, roofline probe, timing utils."""
+"""Quantized-KV attention and timing utils."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flashattn_tpu.ops.gemm import matmul
 from flashattn_tpu.ops.oracle import attention_reference
 from flashattn_tpu.ops.quant import (
     QuantizedKV,
@@ -24,24 +23,11 @@ def test_quantized_matches_dequant_oracle(qdtype, causal):
     isolates kernel plumbing from quantization error."""
     q, k, v = make_qkv(jax.random.PRNGKey(0), 1, 2, 200, 64, Nk=150,
                        dtype=jnp.bfloat16)
-    qkv = quantize_kv(k, v, dtype=qdtype, allow_slow_fp8=True)
+    qkv = quantize_kv(k, v, dtype=qdtype)
     got = flash_attention_quantized(q, qkv, causal=causal)
     kd, vd = dequantize_kv(qkv, jnp.float32)
     want = attention_reference(q.astype(jnp.float32), kd, vd, causal=causal)
     assert_close(got.astype(jnp.float32), want, FWD_TOL[jnp.bfloat16.dtype])
-
-
-def test_fp8_guard_warns_and_falls_back():
-    """fp8 on chips without native fp8 matmuls (v5e, CPU) must warn and
-    quantize as int8 instead (the 5-7x decode perf trap, NOTES.md item 4);
-    allow_slow_fp8=True forces fp8 through."""
-    _, k, v = make_qkv(jax.random.PRNGKey(3), 1, 2, 64, 64,
-                       dtype=jnp.bfloat16)
-    with pytest.warns(UserWarning, match="native fp8"):
-        qkv = quantize_kv(k, v, dtype=jnp.float8_e4m3fn)
-    assert qkv.k_q.dtype == jnp.int8
-    qkv = quantize_kv(k, v, dtype=jnp.float8_e4m3fn, allow_slow_fp8=True)
-    assert qkv.k_q.dtype == jnp.float8_e4m3fn
 
 
 def test_quantized_close_to_full_precision():
@@ -69,29 +55,6 @@ def test_quantized_bnhd_layout():
                  want.astype(jnp.float32), FWD_TOL[jnp.bfloat16.dtype])
 
 
-def test_gemm_probe_matches_xla():
-    a = jax.random.normal(jax.random.PRNGKey(0), (512, 256), jnp.float32)
-    b = jax.random.normal(jax.random.PRNGKey(1), (256, 384), jnp.float32)
-    got = matmul(a, b, block_m=128, block_n=128, block_k=128)
-    want = a @ b
-    assert_close(got, want, FWD_TOL[jnp.float32.dtype])
-
-
-def test_gemm_rejects_indivisible():
-    a = jnp.zeros((100, 128))
-    b = jnp.zeros((128, 128))
-    with pytest.raises(ValueError):
-        matmul(a, b, block_m=128, block_n=128, block_k=128)
-
-
-@pytest.mark.tpu
-def test_roofline_probe_on_tpu():
-    from flashattn_tpu.ops.roofline import measure_mxu_peak_tflops
-
-    tflops = measure_mxu_peak_tflops()
-    assert 50.0 < tflops < 1000.0, tflops
-
-
 def test_attention_flops_model():
     # the reference accounting: fpm = 2BHN²D; fwd 2x, bwd 5x, causal halves
     assert attention_flops(1, 1, 128, 128, 64, causal=False, mode="fwd") == (
@@ -109,25 +72,25 @@ def test_summarize_stats():
     assert abs(s["std"] - np.std([1.0, 2.0, 3.0])) < 1e-9
 
 
-@pytest.mark.tpu
-def test_quantized_attention_compiles_on_tpu():
-    """Mosaic-compiled quantized path (scale-ref slicing lowers differently
-    than in interpret mode — a 1D-gather regression shipped invisibly to the
-    CPU suite once; this pins the compiled path on real hardware)."""
-    import jax
-    import jax.numpy as jnp
-
-    from flashattn_tpu.ops.quant import (
-        dequantize_kv, flash_attention_quantized, quantize_kv,
-    )
-    from flashattn_tpu.ops.oracle import attention_reference
-    from flashattn_tpu.utils.testing import make_qkv
-
-    q, k, v = make_qkv(jax.random.PRNGKey(0), 1, 4, 2048, 128,
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", [jnp.int8, jnp.float8_e4m3fn])
+def test_quantized_attention_compiles_on_gpu(gpu, qdtype):
+    """The compiled quantized path: the 1-byte payload converts to the
+    query dtype in registers and the scales load per KV tile — lowering
+    details the interpreter does not see."""
+    q, k, v = make_qkv(jax.random.PRNGKey(0), 2, 8, 1, 128, Nk=4096, Hkv=2,
                        dtype=jnp.bfloat16)
-    qkv = quantize_kv(k, v, jnp.int8)
+    qkv = quantize_kv(k, v, qdtype)
     o = flash_attention_quantized(q, qkv, interpret=False)
-    kd, vd = dequantize_kv(qkv)
-    want = attention_reference(q.astype(jnp.float32), kd.astype(jnp.float32),
-                               vd.astype(jnp.float32))
-    assert float(jnp.max(jnp.abs(o.astype(jnp.float32) - want))) < 2e-2
+    kd, vd = dequantize_kv(qkv, jnp.float32)
+    want = attention_reference(q.astype(jnp.float32), kd, vd)
+    assert_close(o.astype(jnp.float32), want, FWD_TOL[jnp.bfloat16.dtype])
+
+
+def test_fp8_stays_fp8():
+    """fp8 requests quantize as fp8 (no device-kind fallback)."""
+    _, k, v = make_qkv(jax.random.PRNGKey(3), 1, 2, 64, 64,
+                       dtype=jnp.bfloat16)
+    qkv = quantize_kv(k, v, dtype=jnp.float8_e4m3fn)
+    assert qkv.k_q.dtype == jnp.float8_e4m3fn
+    assert qkv.v_q.dtype == jnp.float8_e4m3fn

@@ -125,9 +125,7 @@ def test_transformer_sliding_window():
     for t in range(12):
         lg, cache = step(cache, toks[:, t])
         errs.append(float(jnp.max(jnp.abs(lg - logits[:, t]))))
-    # on real TPU the model's f32 einsums run as bf16-class MXU matmuls, so
-    # the two computation orders agree at bf16 level, not f32 level
-    tol = 1e-2 if jax.default_backend() == "tpu" else 1e-4
+    tol = 1e-4
     assert max(errs) < tol, errs
 
     # and it must differ from the full-causal model (window actually binds)
@@ -198,55 +196,3 @@ def test_window_gqa_unaligned_bf16_composition():
     for name, a, b in zip(("dq", "dk", "dv"), g, gw):
         assert_close(a.astype(jnp.float32), b,
                      BWD_TOL[jnp.bfloat16.dtype], name)
-
-
-class TestMacroWindow:
-    """Macro-slab windowed routing (r4): fwd via per-slab Element-indexed
-    band fetches, bwd via KV-slab partial-dQ launches. Ceilings are forced
-    down so the small CPU shapes actually take the macro routes."""
-
-    def _force(self, monkeypatch):
-        from flashattn_tpu.ops import flash_bwd_fused, flash_fwd
-
-        monkeypatch.setattr(flash_fwd, "_RESIDENT_CAUSAL_MAX_N", 512)
-        monkeypatch.setattr(flash_bwd_fused, "_RESIDENT_BWD_MAX_N", 512)
-        monkeypatch.setattr(flash_bwd_fused, "_MACRO_BWD_COLS", 512)
-        monkeypatch.setattr(flash_bwd_fused, "_MACRO_BWD_SUB", 256)
-        monkeypatch.setattr(flash_fwd, "_MACRO_ROWS_ENV", "512")
-
-    @pytest.mark.parametrize("causal,window", [(True, (512, -1)),
-                                               (False, (300, 200))])
-    def test_fwd_routed_and_matches(self, monkeypatch, causal, window):
-        from flashattn_tpu.ops import flash_fwd
-
-        self._force(monkeypatch)
-        N = 2048
-        assert flash_fwd.use_macro_resident(
-            causal=causal, window=window, need_tail_mask=False, bias=None,
-            k_scale=None, v_scale=None, static_offsets=(0, 0), Nqp=N, Nkp=N)
-        q, k, v = make_qkv(jax.random.PRNGKey(20), 1, 2, N, 64)
-        got = flash_attention(q, k, v, causal=causal, window=window)
-        want = attention_reference(q, k, v, causal=causal, window=window)
-        assert_close(got, want, FWD_TOL[jnp.float32.dtype])
-
-    def test_grads_gqa_unaligned(self, monkeypatch):
-        """Macro window + GQA + unaligned N in one shot (the padded tail
-        exercises band_chunk's kv bound inside a mid-sequence slab)."""
-        from flashattn_tpu.ops import flash_bwd_fused
-
-        self._force(monkeypatch)
-        N, window = 1800, (500, -1)
-        assert flash_bwd_fused.use_macro_bwd(
-            causal=True, window=window, static_offsets=(0, 0),
-            Nqp=2048, Nkp=2048)
-        q, k, v = make_qkv(jax.random.PRNGKey(21), 1, 4, N, 64, Hkv=2)
-
-        def loss(fn):
-            return lambda q, k, v: (fn(q, k, v) ** 2).sum()
-
-        ours = jax.grad(loss(lambda q, k, v: flash_attention(
-            q, k, v, causal=True, window=window)), (0, 1, 2))(q, k, v)
-        ref = jax.grad(loss(lambda q, k, v: attention_reference(
-            q, k, v, causal=True, window=window)), (0, 1, 2))(q, k, v)
-        for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
-            assert_close(a, b, BWD_TOL[jnp.float32.dtype], name)
